@@ -153,7 +153,7 @@ def tumvi_stereo_inertial(**overrides):
     BASELINE config #4).
 
     The KB8 fisheye pair is rectified to a shared virtual pinhole
-    (io/rectify.stereo_rectify with the equidistant model — the TPU
+    (io/rectify.stereo_rectify with the equidistant model — this
     front-end's stereo matcher works on row-aligned pairs; upstream
     instead matches raw fisheye across cameras via Stereo.T_c1_c2,
     reference include/Settings.h:32-94 precomputes the same Bouguet maps

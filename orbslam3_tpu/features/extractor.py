@@ -2,8 +2,8 @@
 IC-angle -> rBRIEF), one jit-compiled program per image shape.
 
 Pipeline parity with the reference ORBextractor::extractFeatures
-(src/ORBextractor.cc:543-586) with the TPU substitutions documented in each
-op module.  Two-threshold behavior: the reference retries FAST at
+(src/ORBextractor.cc:543-586) with the substitutions documented in each op
+module.  Two-threshold behavior: the reference retries FAST at
 minThFAST when the iniThFAST detection found fewer than 75% of the FAST
 candidate budget (src/ORBextractor.cc:455-470); here both tiers come from
 one low-threshold score map and the low tier is masked in unless the high
@@ -23,7 +23,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from ..ops import brief, fast, gridselect, image, orient
+from ..ops import brief, describe_kernel, fast, gridselect, image, orient
 
 
 @dataclasses.dataclass(frozen=True)
@@ -120,17 +120,11 @@ def _select_level(img_lv, budget: int, cand_cap: int, p: OrbParams):
     return xy[sel_c], top_v[sel_c], ok
 
 
-def extract(img: jnp.ndarray, p: OrbParams) -> FeatureFrame:
-    """img: (H, W) grayscale 0..255, u8 or f32.  Jit-able; one trace per
-    (H, W).  Feed uint8 from the host — it is 4x cheaper to transfer and
-    is cast on device.
-
-    After per-level selection, orientation and descriptors run ONCE over a
-    vertically packed pyramid atlas (all levels in one image) — one patch
-    gather + one binned-BRIEF matmul stack for all keypoints instead of
-    per-level kernel chains.  Patches stay level-local because the
-    selection border (>= 19 px) covers both patch radii.
-    """
+def detect(img: jnp.ndarray, p: OrbParams):
+    """Pyramid + per-level FAST/selection.  Returns the packed pyramid
+    atlases (all levels stacked vertically, raw and blurred), the selected
+    keypoints in atlas coordinates, and the per-level-concatenated
+    (xy level-0, response, octave, valid) outputs."""
     img = img.astype(jnp.float32)
     with jax.named_scope("orb_pyramid"):
         pyr, blurred = image.build_pyramid(img, p.n_levels, p.scale_factor)
@@ -158,32 +152,50 @@ def extract(img: jnp.ndarray, p: OrbParams) -> FeatureFrame:
             [jnp.pad(q, ((0, 0), (0, w0 - q.shape[1]))) for q in levels],
             axis=0)
 
-    atlas = pack(pyr)
-    atlas_blur = pack(blurred)
-    xy_atlas = jnp.concatenate(xs_atlas)
-    if jax.default_backend() not in ("cpu",):
-        # TPU: fused Pallas patch kernel — both atlases VMEM-resident,
-        # moments reduced in-kernel (replaces two serial dynamic-slice
-        # `while` loops measured at 2.2 ms/frame)
-        from ..ops import pallas_patches
-        with jax.named_scope("orb_patches"):
-            angle, P = pallas_patches.ic_angle_and_patches(
-                atlas, atlas_blur, xy_atlas)
-        with jax.named_scope("orb_brief"):
-            desc = brief.descriptors_from_patches(P, angle)
-    else:
-        # separate 2D slices for orientation (raw) and descriptors
-        # (blurred): a fused channels-last (H, W, 2) slice measured SLOWER
-        # (C=2 breaks the 128-lane tiling)
-        with jax.named_scope("orb_angle"):
-            angle = orient.ic_angle(atlas, xy_atlas)
-        with jax.named_scope("orb_brief"):
-            desc = brief.compute_descriptors(atlas_blur, xy_atlas, angle)
+    return (pack(pyr), pack(blurred), jnp.concatenate(xs_atlas),
+            jnp.concatenate(xs_lv), jnp.concatenate(rs),
+            jnp.concatenate(os_), jnp.concatenate(vs))
 
-    return FeatureFrame(
-        xy=jnp.concatenate(xs_lv), response=jnp.concatenate(rs),
-        octave=jnp.concatenate(os_), angle=angle,
-        desc=desc, valid=jnp.concatenate(vs))
+
+def describe_xla(atlas: jnp.ndarray, atlas_blur: jnp.ndarray,
+                 xy_atlas: jnp.ndarray):
+    """IC angle on the raw atlas and rBRIEF on the blurred one, one
+    keypoint-centred window per keypoint (the reference's per-keypoint
+    CUDA blocks become one batched window gather).  Plain XLA: the
+    reference the Pallas kernel is checked against."""
+    with jax.named_scope("orb_angle"):
+        angle = orient.ic_angle(atlas, xy_atlas)
+    with jax.named_scope("orb_brief"):
+        desc = brief.compute_descriptors(atlas_blur, xy_atlas, angle)
+    return angle, desc
+
+
+def describe(atlas: jnp.ndarray, atlas_blur: jnp.ndarray,
+             xy_atlas: jnp.ndarray):
+    """(angle, desc) for keypoints at atlas coordinates.  Lowered for
+    CUDA, the fused Pallas kernel (`ops/describe_kernel.py`); for every
+    other platform, `describe_xla`.  The choice is made per lowering
+    platform, so one jitted program serves both."""
+    return jax.lax.platform_dependent(
+        atlas, atlas_blur, xy_atlas, cuda=describe_kernel.describe,
+        default=describe_xla)
+
+
+def extract(img: jnp.ndarray, p: OrbParams) -> FeatureFrame:
+    """img: (H, W) grayscale 0..255, u8 or f32.  Jit-able; one trace per
+    (H, W).  Feed uint8 from the host — it is 4x cheaper to transfer and
+    is cast on device.
+
+    After per-level selection, orientation and descriptors run ONCE over a
+    vertically packed pyramid atlas (all levels in one image) — one patch
+    gather + one binned-BRIEF matmul stack for all keypoints instead of
+    per-level kernel chains.  Patches stay level-local because the
+    selection border (>= 19 px) covers both patch radii.
+    """
+    atlas, atlas_blur, xy_atlas, xy, response, octave, valid = detect(img, p)
+    angle, desc = describe(atlas, atlas_blur, xy_atlas)
+    return FeatureFrame(xy=xy, response=response, octave=octave,
+                        angle=angle, desc=desc, valid=valid)
 
 
 @functools.partial(jax.jit, static_argnums=1)

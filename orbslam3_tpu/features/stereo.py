@@ -6,7 +6,7 @@ left keypoint, search the same rectified row (band of +-2 px scaled by
 octave) within the disparity range, best Hamming descriptor wins, giving
 per-keypoint right-coordinate uR and depth = fx * baseline / disparity.
 
-TPU design: one masked Hamming NN over all left x right pairs — the row
+Design: one masked Hamming NN over all left x right pairs — the row
 band, disparity range, and octave gates are just mask terms.
 """
 

@@ -88,7 +88,7 @@ def gnss_position_residuals(pwb: jnp.ndarray, gnss: jnp.ndarray,
                             has_fix: jnp.ndarray,
                             sigma: float = 1.0) -> jnp.ndarray:
     """(K,3) weighted position residuals for GNSS-constrained BA
-    (the TPU analogue of the fork's LocalGNSSBundleAdjustment edges:
+    (the analogue of the fork's LocalGNSSBundleAdjustment edges:
     unary priors on keyframe positions in the geo frame)."""
     w = has_fix.astype(jnp.float32)[:, None] / sigma
     return (pwb - gnss) * w

@@ -20,7 +20,7 @@ actual MLPnP formulation — not the DLT stand-in in geometry/pnp.py:
     (octave noise model), then Gauss-Newton refinement with chi2
     inlier reclassification.
 
-TPU design: all RANSAC hypotheses solve in parallel (vmapped batched
+Design: all RANSAC hypotheses solve in parallel (vmapped batched
 eigh of tiny Grams — no data-dependent control flow); both the planar
 and general linear forms are computed for every sample and the globally
 estimated planarity selects between them (two tiny batched solves beat

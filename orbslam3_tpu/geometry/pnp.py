@@ -4,7 +4,7 @@ Parity target: reference MLPnPsolver (src/MLPnPsolver.cpp — RANSAC
 maximum-likelihood PnP with nullspace bearing parametrization; params
 prob .95, minInliers 50, maxIts 300, minSet 12 at src/Tracking.cc:839).
 
-TPU design: the MLPnP nullspace machinery exists to squeeze accuracy out
+Design: the MLPnP nullspace machinery exists to squeeze accuracy out
 of a scalar CPU solver.  Here every RANSAC hypothesis is a linear DLT
 P6P solve (SVD of the stacked projection equations), all hypotheses
 evaluated in parallel, followed by the robust IRLS pose optimizer on the

@@ -5,7 +5,7 @@ draws 3-point samples, ComputeSim3 (:311) is Horn's closed-form absolute
 orientation with scale, inliers checked by reprojection in BOTH cameras
 (CheckInliers, :411: squared pixel error < 9.210 / 7.78 per image).
 
-TPU design: all RANSAC hypotheses evaluated in parallel (vmap), Horn via
+Design: all RANSAC hypotheses evaluated in parallel (vmap), Horn via
 the Umeyama SVD on each 3-point sample; final refit on the winning inlier
 set.
 """

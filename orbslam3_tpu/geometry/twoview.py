@@ -13,7 +13,7 @@ Parity target: reference src/TwoViewReconstruction.cc —
   * ReconstructH: Faugeras 8-motion decomposition, winner needs
     secondBest < 0.75*best, parallax >= 1, best > 50 and > 0.9N (:585-747).
 
-TPU design: the reference runs 200 iterations sequentially in 2 threads;
+Design: the reference runs 200 iterations sequentially in 2 threads;
 here all 200 hypotheses for both models are evaluated in parallel
 (vmap over hypothesis, broadcast over matches) — one fused program.
 """

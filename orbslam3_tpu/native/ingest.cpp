@@ -6,8 +6,8 @@
 // remap-undistort -> resize -> grayscale pipeline feeding the tracker
 // through queues).  Here the same role is played by a C++ thread pool that
 // decodes PNG frames and applies the (precomputed) bilinear remap off the
-// Python GIL, handing ready frames to the host loop in order; the TPU
-// consumes them via jax.device_put.
+// Python GIL, handing ready frames to the host loop in order; the device
+// receives them via jax.device_put.
 //
 // Exposed C ABI (used from Python via ctypes — no pybind11 in this image):
 //   ingest_create(paths, n, remap, h, w, sw, sh, threads, queue_cap)

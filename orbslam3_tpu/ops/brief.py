@@ -7,8 +7,8 @@ stored here as data in orbslam3_tpu/data/orb_pattern.npy), sample the
 5x5-Gaussian-blurred image at the pattern points rotated by the keypoint
 angle (round-to-nearest), and set bit k iff I(p) < I(q).
 
-TPU design: one gather of shape (N, 512) instead of 256 serial reads per
-thread; bit packing via matmul with a power-of-two vector (MXU-friendly).
+Design: one gather of shape (N, 512) instead of 256 serial reads per
+thread; bit packing via a weighted sum with a power-of-two vector.
 Descriptors are returned both bit-packed (N, 8) uint32 for Hamming popcount
 matmuls and that is the canonical storage format.
 """
@@ -89,13 +89,13 @@ def compute_descriptors(img_blurred: jnp.ndarray, xy: jnp.ndarray,
                         n_bins: int = N_ANGLE_BINS) -> jnp.ndarray:
     """Descriptors for N keypoints (discrete-orientation formulation).
 
-    TPU design: per-keypoint rotated sampling is a gather — the slowest
-    TPU primitive (~6 ms for 1200x512 points).  Quantizing the orientation
-    to `n_bins` steps (the original ORB paper itself used 30 discrete
-    orientations; the reference kernel rotates continuously) turns
-    sampling into per-bin one-hot MATMULS over 39x39 patches: patches are
-    one vmapped dynamic-slice, and each bin contributes a masked
-    (N x S^2) @ (S^2 x 512) product on the MXU — ~3x faster end to end.
+    Design: quantizing the orientation to `n_bins` steps (the original
+    ORB paper itself used 30 discrete orientations; the reference kernel
+    rotates continuously) turns the per-keypoint rotated sampling gather
+    into per-bin one-hot MATMULS over 39x39 patches: patches are one
+    vmapped dynamic-slice, and each bin contributes a masked
+    (N x S^2) @ (S^2 x 512) product.  This is the plain reference of the
+    Pallas kernel in ops/describe_kernel.py, which samples directly.
 
     Returns (N, 8) uint32 (256 bits; word w bit b = pair index 32w+b).
     """
@@ -151,13 +151,9 @@ def hamming_distance(desc_a: jnp.ndarray, desc_b: jnp.ndarray) -> jnp.ndarray:
     """All-pairs Hamming distance (Na, 8)x(Nb, 8) uint32 -> (Na, Nb) int32.
 
     popcount(a XOR b) = |a| + |b| - 2 a.b on the unpacked bit vectors —
-    one (Na, 256) @ (256, Nb) matmul that rides the MXU, replacing the
-    reference's per-pair popcount bit hack (src/ORBmatcher.cc:1375).
-
-    A Pallas XOR+SWAR-popcount kernel was built and verified identical
-    on-chip, then retired: the uint32 bit tricks are VPU work (~0.25 ms
-    at map-bank scale) while this matmul is ~40 us on the MXU — the
-    "obvious" CUDA-style formulation is the slow one on TPU.
+    one (Na, 256) @ (256, Nb) matmul, replacing the reference's per-pair
+    popcount bit hack (src/ORBmatcher.cc:1375).  The operands are 0/1
+    and the sums integers <= 256, exact at any matmul precision.
     """
     A = unpack_bits(desc_a)
     B = unpack_bits(desc_b)

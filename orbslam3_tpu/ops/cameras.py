@@ -1,6 +1,6 @@
 """Camera models: Pinhole and Kannala-Brandt-8 (fisheye equidistant).
 
-TPU-native design: cameras are plain parameter vectors, all functions are
+Design: cameras are plain parameter vectors, all functions are
 pure, broadcast over leading dims, and differentiable.  Model selection is
 a static Python-level switch (one compiled program per model — no runtime
 polymorphism, unlike the reference's GeometricCamera virtual interface,

@@ -13,7 +13,7 @@ search + 3x3 nonmaxSuppression).  Semantics implemented here:
   * NMS: keep pixels whose score is a strict 3x3 local max (ties broken
     toward the lexicographically-first pixel to keep determinism).
 
-TPU design: instead of per-pixel threads, we materialize the 16 circle
+Design: instead of per-pixel threads, we materialize the 16 circle
 taps via jnp.roll (XLA turns these into cheap shifted slices) and reduce
 with log-depth min/max trees — pure VPU work, fully fused.
 """

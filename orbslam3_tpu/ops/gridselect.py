@@ -5,7 +5,7 @@ splits the image until the node count reaches the per-level budget, then
 keeps the best-response keypoint per node — i.e. it spends the budget
 breadth-first across space, densifying only where corners are dense.
 
-TPU-native equivalent (fixed-shape, sort-based): bucket candidates into a
+Fixed-shape equivalent (fixed-shape, sort-based): bucket candidates into a
 regular grid and select in *round-robin rank order* — every cell's best
 candidate first, then every cell's second best, etc., until the budget is
 filled; ties inside a rank resolved by response.  This reproduces the

@@ -6,9 +6,9 @@ a 5x5 Gaussian (sigma=1.2, BORDER_REFLECT_101 — src/ORBextractor.cc:145)
 used only for descriptor sampling.  FAST/orientation run on the unblurred
 pyramid.
 
-TPU design: images are f32 (0..255) arrays; resize via jax.image (bilinear,
-half-pixel convention, same as cv::resize INTER_LINEAR); blur as two 1-D
-convolutions that XLA fuses.
+Design: images are f32 (0..255) arrays; resize via jax.image (bilinear,
+half-pixel convention, same as cv::resize INTER_LINEAR); blur as two
+banded matmuls.
 """
 
 from __future__ import annotations
@@ -64,13 +64,11 @@ def _blur_band_np(n: int, ksize: int, sigma: float) -> np.ndarray:
 def gaussian_blur(img: jnp.ndarray, ksize: int = 5, sigma: float = 1.2) -> jnp.ndarray:
     """Separable Gaussian with reflect-101 border (cv BORDER_REFLECT_101).
 
-    TPU design: a 1-input-channel lax.conv leaves the MXU idle and measured
-    ~3.6 ms/frame over the pyramid; the same operator as two banded
-    matmuls (out = Bv @ img @ Bh^T, boundary reflection folded into the
-    band matrices) is MXU work and measured ~50x faster.  HIGHEST matmul
-    precision keeps the result f32-exact (default bf16 rounding would
-    perturb blurred intensities by ~1 graylevel and flip near-tie BRIEF
-    comparisons).
+    Design: the operator as two banded matmuls (out = Bv @ img @ Bh^T,
+    boundary reflection folded into the band matrices) instead of a
+    1-input-channel convolution.  HIGHEST matmul precision keeps the
+    result f32-exact (a reduced-precision matmul would perturb blurred
+    intensities by ~1 graylevel and flip near-tie BRIEF comparisons).
     """
     h, w = img.shape
     Bv = jnp.asarray(_blur_band_np(h, ksize, sigma))
@@ -91,9 +89,7 @@ def build_pyramid(img: jnp.ndarray, n_levels: int, scale_factor: float):
         pyr.append(resize_bilinear(pyr[-1], shapes[lv]))
     # Round blurred levels to integers, matching the reference's uint8
     # blurred image (cv::GaussianBlur on 8U).  This also makes the BRIEF
-    # one-hot sampling matmuls bit-exact on TPU: integers 0..255 are
-    # exactly representable in bf16, so the MXU's default bf16 input
-    # rounding is lossless (measured mean 13.6/256 bit TPU-vs-CPU
-    # descriptor divergence without it).
+    # one-hot sampling matmuls exact at any matmul precision: integers
+    # 0..255 survive bf16/TF32 input rounding.
     blurred = [jnp.round(gaussian_blur(p)) for p in pyr]
     return pyr, blurred

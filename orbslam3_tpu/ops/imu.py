@@ -1,4 +1,4 @@
-"""On-manifold IMU preintegration (Forster et al.), TPU-native.
+"""On-manifold IMU preintegration (Forster et al.).
 
 Numerics transcribed from the reference's update equations
 (/root/reference/src/ImuTypes.cc:179-240 IntegrateNewMeasurement,
@@ -185,7 +185,7 @@ def preintegrate(acc: jnp.ndarray, gyro: jnp.ndarray, dt: jnp.ndarray,
     # unroll=8: the integration is inherently sequential, so the scan's
     # cost at 512-1024 rows is dominated by per-iteration loop
     # turnaround on device; unrolling packs 8 dependent updates per
-    # loop trip (measured 26 ms -> single-digit ms at the 1024-row cap)
+    # loop trip
     st, _ = jax.lax.scan(body, st0, (acc, gyro, dt, mask), unroll=8)
     return st
 

@@ -1,6 +1,6 @@
 """Lie-group operations: SO(3), SE(3), Sim(3).
 
-TPU-native design notes
+Design notes
 -----------------------
 Rotations are stored as 3x3 matrices (f32): matmul-friendly, trivially
 batched, and XLA fuses the small einsums.  All functions broadcast over
@@ -19,7 +19,7 @@ import jax
 import jax.numpy as jnp
 
 _EPS = 1e-8
-# Tiny 3x3 algebra must not be downcast to bf16 on the MXU.
+# Tiny 3x3 algebra must not run at reduced matmul precision (bf16/TF32).
 _HI = jax.lax.Precision.HIGHEST
 
 
@@ -146,8 +146,8 @@ def normalize_rotation(R: jnp.ndarray) -> jnp.ndarray:
     round-off (BA/pose-opt LM updates, IMU preintegration scans), i.e.
     within ~1e-3 of SO(3), so two Newton-Schulz polar steps
     (R <- 1.5 R - 0.5 R R^T R, quadratic convergence for singular values
-    in (0, sqrt(3))) reach f32 precision — pure matmuls instead of the
-    iterative batched-SVD TPU kernel.  For matrices far from SO(3)
+    in (0, sqrt(3))) reach f32 precision — pure matmuls instead of an
+    iterative batched SVD.  For matrices far from SO(3)
     (e.g. a raw DLT estimate) use `normalize_rotation_svd`."""
     for _ in range(2):
         RtR = jnp.einsum("...ji,...jk->...ik", R, R, precision=_HI)
@@ -157,7 +157,7 @@ def normalize_rotation(R: jnp.ndarray) -> jnp.ndarray:
 
 def normalize_rotation_svd(R: jnp.ndarray) -> jnp.ndarray:
     """Exact projection onto SO(3) via SVD — handles arbitrary (possibly
-    reflected/scaled) inputs; slower on TPU (iterative batched SVD)."""
+    reflected/scaled) inputs; an iterative batched SVD."""
     U, _, Vt = jnp.linalg.svd(R)
     det = jnp.linalg.det(U @ Vt)[..., None, None]
     D = jnp.broadcast_to(jnp.eye(3, dtype=R.dtype), R.shape)

@@ -3,10 +3,10 @@ reference ORBmatcher strategy family (src/ORBmatcher.cc — SearchByProjection
 :31, SearchByBoW :133, SearchForInitialization :329, SearchForTriangulation
 :441, Fuse :678/864).
 
-TPU design: the reference prunes candidates with per-keypoint grid lookups
-and BoW buckets because CPU Hamming is expensive; on TPU the full
-(N x M) distance matrix is ONE 256-wide matmul on the MXU (~0.4 GFLOP for
-1200x1200 — microseconds), so every strategy reduces to
+Design: the reference prunes candidates with per-keypoint grid lookups
+and BoW buckets because CPU Hamming is expensive; on an accelerator the
+full (N x M) distance matrix is ONE 256-wide matmul (~0.4 GFLOP for
+1200x1200), so every strategy reduces to
   distance matrix + strategy-specific compatibility mask + argmin + gates.
 Thresholds mirror include/ORBmatcher.h:73-75: TH_LOW=50, TH_HIGH=100,
 HISTO_LENGTH=30.
@@ -171,7 +171,7 @@ def search_by_brute_force(ff1, ff2, nn_ratio: float = 0.7,
                           max_dist: int = TH_LOW,
                           check_rotation: bool = True) -> Matches:
     """Stand-in for SearchByBoW: the BoW shared-node constraint existed to
-    cut CPU cost; the TPU matmul matcher searches all pairs exactly, which
+    cut CPU cost; the matmul matcher searches all pairs exactly, which
     is a superset (>= recall) at equal gates."""
     mask = ff1.valid[:, None] & ff2.valid[None, :]
     return match_nn(ff1.desc, ff2.desc, mask, max_dist=max_dist,

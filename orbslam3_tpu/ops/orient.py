@@ -5,9 +5,10 @@ moments m10 = sum(u * I), m01 = sum(v * I) over a circular patch of radius
 HALF_PATCH_SIZE=15 whose per-row half-width is the `umax` table
 (src/ORBextractor.cc:128-144); angle = atan2(m01, m10) in degrees [0, 360).
 
-TPU design: gather a (2r+1)^2 patch per keypoint (vmapped dynamic-slice →
+Design: gather a (2r+1)^2 patch per keypoint (vmapped dynamic-slice →
 one big gather), apply the circular mask as a weight image, reduce with two
-dot products.  No shared-memory reductions needed — XLA handles it.
+dot products.  ops/describe_kernel.py fuses the same moments into one
+Pallas kernel for CUDA.
 """
 
 from __future__ import annotations
@@ -73,8 +74,7 @@ def extract_patches(img: jnp.ndarray, xy: jnp.ndarray, radius: int) -> jnp.ndarr
 def ic_angle_conv(img: jnp.ndarray, xy: jnp.ndarray,
                   half_patch: int = HALF_PATCH_SIZE) -> jnp.ndarray:
     """Dense-moment-map variant (one 31x31 2-channel conv + per-keypoint
-    lookup).  NOTE: measured SLOWER than the patch formulation on v5e —
-    a 1-input-channel spatial conv leaves the MXU almost idle."""
+    lookup); an alternative formulation kept for comparison."""
     wu, wv = _moment_weights(half_patch)
     k = jnp.stack([jnp.asarray(wu), jnp.asarray(wv)], axis=0)  # (2, s, s)
     x = img[None, None, :, :]

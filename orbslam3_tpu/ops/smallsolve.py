@@ -54,8 +54,7 @@ def solve_psd_blocked(A: jnp.ndarray, b: jnp.ndarray, bs: int = 6
     unrolled over the K block-columns (K static, <= ~32).
 
     Replaces jnp.linalg.solve's LU custom call, whose fixed kernel
-    latency (~2 ms on v5e through XLA's blocked HLO loop) dominates when
-    the solve sits inside a sequential LM scan.  Every step here is a
+    latency dominates when the solve sits inside a sequential LM scan.  Every step here is a
     small fused einsum; XLA fuses the whole factorization into a handful
     of kernels.  A must be well-conditioned after LM damping (callers
     damp); no pivoting.

@@ -23,10 +23,9 @@ def triangulate_dlt(ray1: jnp.ndarray, ray2: jnp.ndarray,
 
     Solves the standard DLT rows (x*P3 - P1), (y*P3 - P2) for both views.
     The reference runs one 4x4 SVD per point; batched tiny SVDs are an
-    iterative (Jacobi) TPU kernel and dominate the keyframe-insert
-    program, so the default path solves the INHOMOGENEOUS system
-    A[:, :3] X = -A[:, 3] by closed-form 3x3 normal equations (pure
-    einsums on the MXU).  The homogeneous formulations only differ for
+    iterative (Jacobi) kernel, so the default path solves the
+    INHOMOGENEOUS system A[:, :3] X = -A[:, 3] by closed-form 3x3 normal
+    equations (pure einsums).  The homogeneous formulations only differ for
     points at infinity, which the callers' parallax gates
     (cosParallax < 0.9998) reject anyway; `triangulate_dlt_svd` keeps the
     exact null-space solve for reference/tests.
@@ -88,8 +87,8 @@ def _dlt_rows(ray1, ray2, Tcw1_R, Tcw1_t, Tcw2_R, Tcw2_t):
 
 def triangulate_dlt_svd(ray1, ray2, Tcw1_R, Tcw1_t, Tcw2_R, Tcw2_t):
     """Exact homogeneous DLT via 4x4 SVD (reference
-    GeometricTools::Triangulate) — slow on TPU (iterative batched SVD);
-    kept as the oracle for tests and far-point edge cases."""
+    GeometricTools::Triangulate) — an iterative batched SVD; kept as
+    the oracle for tests and far-point edge cases."""
     A = _dlt_rows(ray1, ray2, Tcw1_R, Tcw1_t, Tcw2_R, Tcw2_t)
     _, _, Vt = jnp.linalg.svd(A)
     X = Vt[..., 3, :]

@@ -4,10 +4,10 @@ This is the build's "model parallelism" (SURVEY §2.11, §5.7): map points
 and their observations are sharded across devices; each shard marginalizes
 its own points (embarrassingly parallel) and the reduced camera system is
 solved matrix-free by PCG whose K-sized contractions are `psum`s over the
-ICI — the same `solver.ba._solve_schur` code path as single-device, with
-`reduce=psum`.  The reference's equivalent is a single-threaded g2o sparse
-solve (src/Optimizer.cc:74-85) — there is no distribution to port, this is
-the TPU-native design the driver's north star prescribes.
+device interconnect — the same `solver.ba._solve_schur` code path as
+single-device, with `reduce=psum`.  The reference's equivalent is a
+single-threaded g2o sparse solve (src/Optimizer.cc:74-85) — there is no
+distribution to port; this is the engine's own design.
 
 Sharding invariant: observations must be partitioned so that all
 observations of a point live on that point's shard (`partition_problem`
@@ -53,13 +53,14 @@ def partition_problem(prob: BAProblem, n_shards: int) -> BAProblem:
     pos_in_shard = jnp.arange(O_cap) - jax.lax.cummax(
         jnp.where(jnp.concatenate([jnp.array([True]), sh[1:] != sh[:-1]]),
                   jnp.arange(O_cap), 0))
-    keep = pos_in_shard < obs_per
-    dst = sh * obs_per + jnp.minimum(pos_in_shard, obs_per - 1)
+    # overflow rows go out of range and are dropped (clamping them onto
+    # the shard's last slot let them overwrite a kept observation there)
+    dst = jnp.where(pos_in_shard < obs_per, sh * obs_per + pos_in_shard,
+                    O_cap)
 
     def scatter(arr, fill):
         out = jnp.full((O_cap,) + arr.shape[1:], fill, arr.dtype)
-        return out.at[dst].set(jnp.where(
-            keep.reshape((-1,) + (1,) * (arr.ndim - 1)), arr[order], out[dst]))
+        return out.at[dst].set(arr[order], mode="drop")
 
     out = prob._replace(
         obs_cam=scatter(prob.obs_cam, 0),
@@ -80,7 +81,7 @@ def _dense_reduced_local(Hcc, bc, Hpp, bp, Cobs, obs_cam, lo_pt, lam,
       S = blockdiag(Hcc + lam I) - psum(S_off_l)
       rhs = (psum(bc_l) - psum(rv_l)) * free
     S_off is assembled without the (K, P, 6, 3) coupling tensor via the
-    Cholesky-split scatter (G G^T as one MXU matmul — same trick as
+    Cholesky-split scatter (G G^T as one matmul — same trick as
     ba._solve_schur_dense, here over the shard's own point block)."""
     P_l = Hpp.shape[0]
     K = Hcc.shape[0]
@@ -144,27 +145,24 @@ def dist_bundle_adjust(prob: BAProblem, mesh: Mesh, axis: str = "shard",
     `prob` must already be partitioned with `partition_problem(n_shards)`.
     Returns (R, t, X, cost) with the same shapes as the input problem.
 
-    comm modes (VERDICT r4 weak #2 / next-step #3 — the old per-matvec
-    scheme issued ~35 collectives per LM iteration, a >=157 ms/iter
-    latency floor at Gloo's ~4.5 ms/psum that capped 2-process scaling
-    at 0.26-0.28):
+    comm modes (the per-matvec scheme issues ~35 collectives per LM
+    iteration, a latency floor wherever a collective is slow):
       * "dense"    — communication-avoiding: each shard
         assembles its dense reduced-system contribution (G G^T over its
         own point block), ONE batched psum per LM iteration ships
         {S_off, Hcc, bc, rv, cost} together, and the (6K)^2 reduced
         solve runs replicated with a local PCG.  2 collectives per LM
         iteration total (the assembly psum + the accept-test cost psum).
-        Right while the camera count keeps (6K)^2 comfortably on-chip
-        (K <= ~1024: 151 MB f32).
+        Right while the camera count keeps (6K)^2 comfortably in device
+        memory (K <= ~1024: 151 MB f32).
       * "camshard" — keyframe-block-sharded reduced system (SURVEY
-        §2.11 north star; the pod-scale K >> 1k configuration): every
+        §2.11 north star; the K >> 1k configuration): every
         device owns K/n camera rows of S/rhs/preconditioner, PCG state
         is sharded, and each matvec costs one small all_gather(x) +
         psum; camera memory AND reduced-solve flops scale 1/n.
-      * "matvec"   — the r3 scheme (psum inside every PCG matvec).
-        DEFAULT: right for in-process ICI meshes where a psum costs
-        microseconds; cross-process (DCN/Gloo) callers should pass
-        "dense".
+      * "matvec"   — psum inside every PCG matvec.  DEFAULT: right for
+        in-process meshes over a fast interconnect (NVLink) where a psum
+        costs microseconds; cross-process callers should pass "dense".
     """
     n_shards = mesh.shape[axis]
     P_cap = prob.X.shape[0]

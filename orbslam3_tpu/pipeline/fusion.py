@@ -161,7 +161,7 @@ def refresh_point_descriptors(m: mapstate.MapState, ff, kp_pt) -> \
     (1) push the new KF's descriptor for every re-observed point and
     (2) recompute the min-median descriptor for exactly those points with
     one small batched popcount: the N touched points' (M, M) pairwise
-    distance cubes are (N, M, 256) bit tensors contracted on the MXU —
+    distance cubes are (N, M, 256) bit tensors contracted as matmuls —
     no host loop, no bank search."""
     P = m.pt_xyz.shape[0]
     M = m.pt_desc_hist.shape[1]

@@ -13,7 +13,7 @@ SURVEY §0 fork-delta 2 — but required by the build's north star):
     KF correction (reference LoopClosing::CorrectLoop +
     Optimizer::OptimizeEssentialGraph, src/Optimizer.cc:1848).
 
-TPU design: detection is one TF-IDF matvec; Sim3 RANSAC is fully batched;
+Design: detection is one TF-IDF matvec; Sim3 RANSAC is fully batched;
 the pose graph solves densely on-device.  The host only sequences stages.
 """
 
@@ -103,10 +103,10 @@ def build_essential_graph(m: mapstate.MapState, min_covis: int = 100,
 class LoopConfig:
     # 65k words (r5): the pod-scale recall study (tools/
     # vocab_recall_curve.py, 1024 aliased places over FOUR texture
-    # families, curve in BASELINE.md) shows 65536 words trained on all
+    # families) shows 65536 words trained on all
     # four families hold recall@1 0.62 / recall@3 0.80 at a 1024-KF DB
     # where 32768 fall to 0.50/0.62 — the flat-codebook analogue of the
-    # reference's 1M-leaf DBoW2 tree at MXU-friendly scale.  Per-KF BoW
+    # reference's 1M-leaf DBoW2 tree at matmul-friendly scale.  Per-KF BoW
     # assignment stays one (N,256)@(256,V) popcount matmul; DB memory is
     # (K,V) f32 = 64 MB at 256 KFs / 256 MB at pod capacity.
     n_words: int = 65536

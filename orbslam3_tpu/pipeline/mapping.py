@@ -340,9 +340,8 @@ def gather_window_problem_bank(m: mapstate.MapState, bank, center_kf,
     """COO window problem from the per-KF FeatureBank slabs — the bank
     analogue of gather_window_problem, for the solvers that need a COO
     observation list (VI BA, GNSS-prior BA, distributed BA) rather than
-    the dense grid.  Replaces the O(map obs capacity) scans (measured
-    ~13 ms fixed per BA at 196k obs on v5e) with (C, N)-slab gathers and
-    incidence-mask matvecs — same window/anchor/budget semantics.
+    the dense grid.  Replaces the O(map obs capacity) scans with
+    (C, N)-slab gathers and incidence-mask matvecs — same window/anchor/budget semantics.
     """
     K = m.kf_R.shape[0]
     P = m.pt_xyz.shape[0]
@@ -510,9 +509,8 @@ def gather_window_grid_bank(m: mapstate.MapState, bank, center_kf,
     the per-KF FeatureBank slabs instead of the map-capacity COO list.
 
     Same window/anchor/budget semantics as gather_window_grid, different
-    data path: the COO gather scans O(map obs capacity) rows (measured
-    ~13 ms of map-sized gather/scatter fusions at 196k obs on v5e — the
-    fixed cost of every local BA), while the bank path touches only the
+    data path: the COO gather scans O(map obs capacity) rows (map-sized
+    gather/scatter fusions — a fixed cost of every local BA), while the bank path touches only the
     selected cameras' (C, N) slabs (~19k rows at C=16, N=1200) plus
     elementwise work on the (P, K) incidence mask.  The bank's bindings
     mirror the live observation set (System keeps them current through
@@ -654,8 +652,7 @@ def run_local_ba(m: mapstate.MapState, center_kf: jnp.ndarray,
     if schur_solver == "grid":
         from ..solver import ba_grid
         if bank is not None:
-            # per-KF slab gather (no O(obs-capacity) scans; ~13 ms/BA
-            # cheaper at full map capacity on v5e)
+            # per-KF slab gather (no O(obs-capacity) scans)
             gprob, cam_sel, cam_ok, pt_sel, pt_ok = gather_window_grid_bank(
                 m, bank, center_kf, window, n_levels, scale_factor,
                 cam_model=cam_model, cam_params=cam_params,

@@ -12,7 +12,7 @@ closure — is the stereo path.  We do exactly that: sample the depth
 image at keypoint pixels, synthesize a ``StereoDepth``, and reuse
 ``StereoSystem`` unchanged.
 
-TPU design: the depth sample is one gather over the (H, W) depth plane
+Design: the depth sample is one gather over the (H, W) depth plane
 fused into the same program as the validity gating; no per-keypoint
 host loop.  The "baseline" of the virtual rig is a free parameter (the
 reference reads Camera.bf from the config); it only sets the

@@ -12,7 +12,7 @@ src/Tracking.cc):
     decision -> keyframe insertion + triangulation + local BA,
   * LOST -> map reset (src/Tracking.cc:543-544).
 
-TPU design: the reference runs Tracking and LocalMapping in two threads
+Design: the reference runs Tracking and LocalMapping in two threads
 over a mutex-guarded map; here the host loop calls jitted mega-steps over
 an immutable MapState (versioned snapshots — no locks, SURVEY §7.1).
 Mapping work (triangulation + local BA) can be dispatched asynchronously
@@ -73,7 +73,6 @@ class SlamConfig:
     # 6 LM x 12-iteration PCG: the window problem is warm-started at every
     # keyframe (the reference's g2o runs 5+10 but early-stops); 10x32 was
     # latency-bound — 320 dependent device steps dominated the KF frame
-    # (measured 340 ms -> this schedule + right-sized caps ~3x faster)
     local_ba_iters: int = 6
     ba_pcg_iters: int = 12
     # cams/pts/obs capacities sized to the 8-KF window + fixed anchors at
@@ -173,8 +172,7 @@ class System:
         self.n_map_switches = 0   # CreateMapInAtlas events (not resets)
         # host mirror of map.n_kf / last KF timestamp: keyframe indices are
         # host-predictable (append-only), so the hot path never has to
-        # round-trip the device for them (each sync costs a full
-        # host<->TPU RTT); resynced on map merges
+        # wait on the device for them; resynced on map merges
         self.n_kf_host = 0
         self.last_kf_ts = 0.0
         # the keyframe database backs BOTH loop closing and relocalization
@@ -364,9 +362,12 @@ class System:
         ba_mesh = None
         if cfg.ba_mesh_shards > 1:
             devs = jax.devices()
-            if len(devs) >= cfg.ba_mesh_shards:
-                ba_mesh = jax.sharding.Mesh(
-                    np.asarray(devs[:cfg.ba_mesh_shards]), ("shard",))
+            if len(devs) < cfg.ba_mesh_shards:
+                raise ValueError(
+                    f"ba_mesh_shards={cfg.ba_mesh_shards} but only "
+                    f"{len(devs)} devices are visible")
+            ba_mesh = jax.sharding.Mesh(
+                np.asarray(devs[:cfg.ba_mesh_shards]), ("shard",))
 
         @jax.jit
         def _local_ba(m, center_kf, bank=None):
@@ -430,9 +431,8 @@ class System:
                      center):
             """The whole synchronous keyframe frame as ONE program:
             insert + triangulate, point culling, window BA, tracking-view
-            rebuild.  One dispatch instead of four — each dispatch through
-            a remote-attached device costs fixed RPC latency, and the
-            keyframe frame sits on the tracking critical path."""
+            rebuild.  One dispatch instead of four — the keyframe frame
+            sits on the tracking critical path."""
             m, bank, ki, kp_pt_new, n_new = _insert_kf(
                 m, bank, ff, kp_pt, R, t, ts, frame_id, kp_ur)
             m = mapstate.cull_points(m, frame_id)
@@ -614,8 +614,8 @@ class System:
         for k, fix in self.kf_gnss.items():
             prior_pos[k] = s_i * (R_i @ (fix - t_np))
             prior_w[k] = 1.0 / (cfg.gnss_sigma * s_i) ** 2
-        # dispatch as a pending device chain (measured 174 ms at the
-        # 64-cam window on v5e — blocking would dominate the KF frame);
+        # dispatch as a pending device chain (a 64-cam window BA —
+        # blocking would dominate the KF frame);
         # absorbed by the same swap-in path as async mapping / post-loop
         # GBA, and the per-frame pose optimizer re-anchors the camera to
         # the geo-corrected map at the first frame after the swap

@@ -9,7 +9,7 @@ Parity target: reference Tracking (src/Tracking.cc) — the monocular path:
   * keyframe decision thresholds (src/Tracking.cc:985-1005).
 
 Each function here is one fused jit program over the fixed-capacity
-MapState — the TPU replacement for the reference's per-frame C++ loops.
+MapState — the fixed-shape replacement for the reference's per-frame C++ loops.
 """
 
 from __future__ import annotations

@@ -6,8 +6,8 @@ add/erase/clear (:38-97) and the candidate detectors: DetectCandidates
 DetectNBestCandidates (covisibility-group accumulated scores, :602),
 DetectRelocalizationCandidates (:731).
 
-TPU design: the inverted file (word -> keyframes) exists to sparsify CPU
-scoring; on TPU the database is a dense (K, V) TF matrix and every query
+Design: the inverted file (word -> keyframes) exists to sparsify CPU
+scoring; here the database is a dense (K, V) TF matrix and every query
 is one matvec — mathematically the same L1/TF-IDF family score over ALL
 keyframes at once, so the "inverted index" is the matmul itself.  IDF
 weights are recomputed from document frequencies on the fly.

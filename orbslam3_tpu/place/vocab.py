@@ -6,9 +6,9 @@ transform; include/ORBVocabulary.h).  The reference loads a pre-trained
 1M-leaf hierarchical k-means tree (ORBvoc.txt — not shipped in-repo) and
 assigns each descriptor to a leaf "word" by tree descent.
 
-TPU-native substitute: a flat codebook of `n_words` anchor descriptors;
+Substitute: a flat codebook of `n_words` anchor descriptors;
 word assignment = Hamming argmin over all anchors, computed as ONE
-(N x 256) @ (256 x V) popcount matmul on the MXU — flat search beats tree
+(N x 256) @ (256 x V) popcount matmul — flat search beats tree
 descent on this hardware and removes the tree's data-dependent control
 flow.  Anchors are seeded pseudo-randomly (bit patterns balanced per bit)
 and can be refined online with `kmeans_refine` (k-majority over assigned

@@ -6,7 +6,7 @@ CreateNewMap — stores the current map and re-bases ids) and upstream's
 map-merge machinery (welding two maps after a cross-map place-recognition
 hit; the merge BA is the standard local BA over the welded region).
 
-TPU design: each session map is an immutable MapState pytree; merging is
+Design: each session map is an immutable MapState pytree; merging is
 array concatenation into a fresh fixed-capacity state after transforming
 the newer map with the measured Sim3 (x_old = s Rg x_new + tg).
 """

@@ -3,7 +3,7 @@
 The reference keeps each KeyFrame's keypoints/descriptors in its object
 (include/KeyFrame.h:231-240) and LocalMapping walks covisible neighbors'
 feature sets on the CPU (SearchForTriangulation per neighbor,
-src/LocalMapping.cc:488).  The TPU equivalent is one stacked array per
+src/LocalMapping.cc:488).  The equivalent here is one stacked array per
 field so neighbor selection + multi-neighbor triangulation run inside a
 single jitted program with gathers instead of host dict lookups.
 

@@ -1,4 +1,4 @@
-"""Map state as fixed-capacity SoA arrays (the TPU replacement for the
+"""Map state as fixed-capacity SoA arrays (the fixed-shape replacement for the
 reference's mutex-laced KeyFrame/MapPoint object graph — SURVEY §7.1).
 
 Parity coverage:
@@ -91,9 +91,8 @@ class MapState(NamedTuple):
     # consumers with pt_valid/kf_valid (an invalidated observation of a
     # live point leaves a stale bit — harmless over-report, see
     # covisibility_weights).  This turns covisibility, observation counts
-    # and window selection — O(n_obs) gather/scatter chains measured at
-    # ~1.7 ms EACH on v5e at 196k-obs capacity — into elementwise ops and
-    # one MXU matvec.
+    # and window selection — O(n_obs) gather/scatter chains — into
+    # elementwise ops and one matvec.
     pt_kf_mask: jnp.ndarray
 
 
@@ -179,7 +178,7 @@ def add_points(m: MapState, xyz, desc, normal, min_dist, max_dist,
     base = m.n_pt
     dst = base + jnp.cumsum(v.astype(jnp.int32)) - 1
     # capacity guard: entries past P are dropped (returned as -1) instead
-    # of silently aliasing the last slot (ADVICE r1: OOB scatter corruption)
+    # of silently aliasing the last slot (OOB scatter corruption)
     write = v & (dst < P)
     dst_c = jnp.where(write, dst, P)  # OOB destination => scatter dropped
 
@@ -233,7 +232,7 @@ def add_observations(m: MapState, kf_idx, pt_idx, uv, octave,
     kf_arr = jnp.broadcast_to(jnp.asarray(kf_idx, jnp.int32), (B,))
     v = valid & (pt_idx >= 0)
     # destination via cumsum (stable compaction without argsort); entries
-    # past capacity O are dropped (ADVICE r1: no aliasing)
+    # past capacity O are dropped (no aliasing)
     n_new = jnp.sum(v.astype(jnp.int32))
     base = m.n_obs
     dst = base + jnp.cumsum(v.astype(jnp.int32)) - 1
@@ -291,7 +290,7 @@ def covisibility_weights(m: MapState, kf_idx: jnp.ndarray) -> jnp.ndarray:
     """(K,) shared-point counts between `kf_idx` and every other KF
     (reference KeyFrame::UpdateConnections, src/KeyFrame.cc:459).
 
-    One MXU matvec over the live incidence grid: counts[k] =
+    One matvec over the live incidence grid: counts[k] =
     sum_p live[p, kf_idx] * live[p, k]."""
     live = live_incidence(m)
     seen = live[:, kf_idx].astype(jnp.float32)
@@ -312,7 +311,7 @@ def covisibility_matrix(m: MapState, chunk: int = 8192,
     (the full covisibility graph; reference KeyFrame::UpdateConnections
     pairwise counters, src/KeyFrame.cc:459).
 
-    Small maps: one MXU matmul over the f32-cast incidence.  Pod-scale
+    Small maps: one matmul over the f32-cast incidence.  Pod-scale
     maps (P*K beyond the dense cutoff): a `lax.scan` over point blocks
     accumulates W with only a (chunk, K) f32 transient — the bool
     pt_kf_mask is the only (P, K) resident, never an f32 copy.  Same
@@ -342,7 +341,7 @@ class PointView(NamedTuple):
     the keyframes sharing points with the current frame (<=80) and
     UpdateLocalPoints collects their points (src/Tracking.cc:2964-3090) —
     precisely so per-frame cost scales with the local neighborhood, not
-    the whole map.  The TPU equivalent: gather the covisibility
+    the whole map.  The equivalent here: gather the covisibility
     neighborhood's points into a fixed small buffer once per keyframe, so
     the per-frame (P, N) projection/matching planes are V-sized (V ~ 8k)
     instead of capacity-sized (24k).  `idx` maps view slots back to global

@@ -7,7 +7,7 @@ Parity targets (reference src/Optimizer.cc):
   * LocalBundleAdjustment (:1069-1360) — window of cameras, fixed boundary
     cameras, 10 iterations.
 
-TPU design (SURVEY §7.1): observations are a fixed-capacity COO list
+Design (SURVEY §7.1): observations are a fixed-capacity COO list
 (cam_idx, pt_idx, uv, inv_sigma2, valid).  Per LM iteration:
   1. residuals/Jacobians for all observations in one batch;
   2. point blocks H_pp (3x3) inverted in closed form;
@@ -322,12 +322,11 @@ def _solve_schur_dense(Hcc, bc, Hpp, bp, Cobs, obs_cam, obs_pt, lam,
 
     For window-sized problems (K <= ~32) the reduced camera system is
     tiny; a direct solve replaces the PCG iteration chain, whose dozens
-    of small dependent kernels are pure device latency (measured: the
-    10x32 LM/PCG schedule made local BA 340 ms — the dominant cost of a
-    keyframe frame).  S is assembled without the (K, P, 6, 3) coupling
+    of small dependent kernels are pure device latency (the 10x32 LM/PCG
+    schedule made local BA the dominant cost of a keyframe frame).  S is assembled without the (K, P, 6, 3) coupling
     tensor: with L_p = chol(Hpp_inv_p), the scatter
     G[cam_n, pt_n] += Cobs_n L_{pt_n} gives  sum_p C Hppinv C^T = G G^T
-    as ONE (6K, 3P) @ (3P, 6K) matmul on the MXU.
+    as ONE (6K, 3P) @ (3P, 6K) matmul.
     """
     P = Hpp.shape[0]
     K = Hcc.shape[0]
@@ -356,8 +355,8 @@ def _solve_schur_dense(Hcc, bc, Hpp, bp, Cobs, obs_cam, obs_pt, lam,
     S = S * ff
     S = S.at[jnp.arange(K), :, jnp.arange(K), :].add(
         jnp.eye(6)[None] * (1 - free)[:, None, None])
-    # blocked unrolled Cholesky: jnp.linalg.solve's LU custom call costs
-    # ~2 ms of fixed kernel latency per LM step on v5e
+    # blocked unrolled Cholesky: jnp.linalg.solve's LU custom call has a
+    # fixed kernel latency on every LM step
     dx_cam = smallsolve.solve_psd_blocked(
         S.reshape(K * 6, K * 6), rhs.reshape(K * 6), bs=6).reshape(K, 6)
     dx_cam = dx_cam * free[:, None]

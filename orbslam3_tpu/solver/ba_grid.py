@@ -4,11 +4,10 @@ observation grid instead of a COO list.
 Parity target: reference LocalBundleAdjustment (src/Optimizer.cc:1069-1360)
 — same window semantics, LM schedule and Huber gating as solver/ba.py.
 
-TPU design rationale (measured on v5e, 16 cams / 4096 pts / 12288 obs):
-the COO formulation spends its LM iteration on TPU-hostile primitives —
-scatter-adds for Hcc/Hpp/G (2.6 ms), per-observation (O,2,3)x(O,3,6)
-batched tiny dot_generals whose layouts strand the VPU (8 ms for ~2
-MFLOP), and a re-materialized (K*P,6,3) coupling buffer.  A window map
+Design rationale (16 cams / 4096 pts / 12288 obs): the COO formulation
+spends its LM iteration on scatter-adds for Hcc/Hpp/G, per-observation
+(O,2,3)x(O,3,6) batched tiny dot_generals, and a re-materialized
+(K*P,6,3) coupling buffer.  A window map
 point is observed AT MOST ONCE per keyframe, so the problem is naturally
 a dense (P, K) grid:
 
@@ -17,7 +16,7 @@ a dense (P, K) grid:
     (P, K) plane arithmetic that XLA fuses into a handful of elementwise
     kernels — no batched tiny matmuls;
   * the two big contractions (Hcc over p*r, S_off over p*3) become real
-    MXU matmuls with contraction length in the thousands;
+    matmuls with contraction length in the thousands;
   * the camera-point coupling IS the grid — the (K,P,6,3) tensor the COO
     path scattered into is produced directly, and the reduced system is
     solved by the unrolled block Cholesky (ops/smallsolve).
@@ -181,7 +180,7 @@ def _grid_step(prob: GridBAProblem, R, t, X, lam, cam_model, cam_params,
     Jc = Jc * free[None, :, None, None]
     r = e.shape[-1]
 
-    # ---- camera system: one MXU matmul per K batch, e appended as an
+    # ---- camera system: one matmul per K batch, e appended as an
     # extra column so Hcc and bc come out of the same contraction
     wJc = Jc * w[..., None, None]
     Je = jnp.concatenate([Jc, e[..., None]], axis=-1)        # (P,K,r,7)

@@ -7,7 +7,7 @@ tree and strong covisibility links; identity information; after the
 solve, map points are transported by their reference KF's correction
 (done by the loop-closing pipeline, not here).
 
-TPU design: vertices batched (K, 7-dof as R/t/s); residual per edge uses
+Design: vertices batched (K, 7-dof as R/t/s); residual per edge uses
 the component-wise chart r = [Log(R_err), t_err, log(s_err)] of
 E = S_meas^-1 S_i S_j^-1 (zero iff the relative pose matches); LM with
 forward-mode AD over the stacked local deltas; one dense solve per

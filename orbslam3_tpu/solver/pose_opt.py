@@ -6,7 +6,7 @@ Parity target: Optimizer::PoseOptimization (reference src/Optimizer.cc:765-
 (5.991 mono) and the robust kernel is dropped from round 3 (it==2 sets
 setRobustKernel(0) for the remaining rounds).
 
-TPU design: all edges evaluated batched; Gauss-Newton on the 6-dof pose
+Design: all edges evaluated batched; Gauss-Newton on the 6-dof pose
 with a fixed iteration schedule (`lax.fori_loop`), inlier set carried as a
 mask — no graph rebuild between rounds, just mask updates.  Pose is Tcw
 (world->camera) with left-multiplicative update Exp(dx) * Tcw,

@@ -11,7 +11,7 @@ Parity targets (reference src/Optimizer.cc):
     window (10 KFs + fixed boundary), 25 its, lambda0 = 1e0 — realized by
     passing window masks in `cam_fixed`.
 
-TPU design: per-edge Jacobians by forward-mode AD around a zero local
+Design: per-edge Jacobians by forward-mode AD around a zero local
 update (right-multiplicative on rotation, additive elsewhere), batched
 over edges; the reduced 15K x 15K camera system is applied MATRIX-FREE
 (per-observation coupling blocks + per-factor pair blocks, segment-sums)
@@ -112,8 +112,8 @@ def _reproj_terms(prob: VIProblem, Rwb, pwb, X, cam_model, cam_params,
       dXb/dpwb    = -Rwb^T
       dXb/dX      = +Rwb^T
     The per-observation forward-mode AD this replaces cost ~9 projection
-    evaluations per observation per linearization — measured as the
-    bulk of the 182 ms inertial window BA device time (vs 7 ms visual).
+    evaluations per observation per linearization — the bulk of the
+    inertial window BA's device time.
     """
     ci, pi = prob.obs_cam, prob.obs_pt
     Rbw = jnp.swapaxes(Rwb[ci], -1, -2)                     # (O,3,3)

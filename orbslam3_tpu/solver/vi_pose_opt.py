@@ -11,7 +11,7 @@ the reference finishes by Schur-marginalizing a 30x30 Hessian into a
 15-dof prior (ConstraintPoseImu) carried to the next frame — here the
 returned Hessian plays that role when the caller requests it.
 
-TPU design: one GN program, fixed 4x5 masked rounds; Jacobians of the
+Design: one GN program, fixed 4x5 masked rounds; Jacobians of the
 visual part analytic, of the inertial part via jacfwd on the 15-dof
 local update.
 """

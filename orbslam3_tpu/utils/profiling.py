@@ -64,7 +64,7 @@ class StageTimer:
 @contextlib.contextmanager
 def trace(logdir: str = "/tmp/orbslam3_tpu_trace"):
     """Capture an XLA profile viewable in XProf/Perfetto
-    (TPU equivalent of running the Tracy server)."""
+    (the equivalent of running the Tracy server)."""
     with jax.profiler.trace(logdir):
         yield
     print(f"profile written to {logdir}", flush=True)

@@ -2,8 +2,8 @@
 
 Parity target: the reference's Pangolin Viewer/MapDrawer/FrameDrawer
 (SURVEY L8 — optional GL thread drawing map points, keyframes, the
-covisibility graph and the tracked-feature overlay).  A TPU deployment is
-headless, so the equivalent is artifact export: matplotlib snapshots of
+covisibility graph and the tracked-feature overlay).  An accelerator
+deployment is headless, so the equivalent is artifact export: matplotlib snapshots of
 the map + trajectory and per-frame tracked-feature overlays, callable at
 any time from the host loop.
 """

@@ -3,7 +3,7 @@
 Parity target: reference Viewer/FrameDrawer/MapDrawer
 (/root/reference/src/Viewer.cc:160-191 — Pangolin window with
 camera-follow and step-by-step mode).  A Pangolin/GL window assumes a
-local display; the TPU engine runs headless on a pod, so the TPU-native
+local display; the engine runs headless on an accelerator host, so the
 equivalent is a zero-dependency HTTP viewer: a background thread serves
 a self-contained HTML/canvas page (no external assets — zero-egress
 safe) that polls the map state as JSON and renders top-down + side

@@ -7,7 +7,7 @@ window gather -> parallel.dist_ba.partition_problem -> shard_map solve ->
 scatter-back chain under real tracking/insertion/culling traffic, not
 just the solver-level test (test_dist_ba).  Reference analogue: the
 single-threaded g2o local BA inside LocalMapping (src/LocalMapping.cc:
-117-152) — distribution is this build's TPU-native addition.
+117-152) — distribution is this build's own addition.
 """
 import jax
 import jax.numpy as jnp

@@ -81,7 +81,7 @@ class TestGeorefSurvivesReanchor:
         georeference's sliding window of SLAM positions must ride the
         same Sim3 or the Umeyama fit mixes frames (regression: a 7x
         re-anchor left the SLAM->geo scale at 2.1 instead of 3.0 and
-        the geo error at ~0.8 m in the r4 TPU drive)."""
+        the geo error at ~0.8 m in an earlier drive)."""
         from orbslam3_tpu.pipeline import inertial_system
         from orbslam3_tpu.pipeline import system as base_sys
         from orbslam3_tpu.ops import lie

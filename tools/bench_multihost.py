@@ -8,12 +8,13 @@ is the measurement the strong-scaling ratio in bench_scaling.py is not.
 Two modes:
   launcher (default):  spawns N worker processes on this machine, each
     with --xla_force_host_platform_device_count virtual CPU devices and
-    a Gloo DCN between them — the multi-controller topology of a real
-    multi-host TPU pod, minus the ICI speed.  Prints one JSON line.
+    Gloo collectives between them — the multi-controller topology of a
+    real multi-host cluster, minus its interconnect speed.  Prints one
+    JSON line.
   worker (SLAM_NUM_PROCESSES set): jax.distributed.initialize, build
     the global mesh, run the engine's dist_ba, rank 0 reports timing.
 
-On real multi-host TPU hardware run one process per host with
+On real multi-host hardware run one process per host with
 SLAM_COORDINATOR / SLAM_NUM_PROCESSES / SLAM_PROCESS_ID set by the
 cluster scheduler; nothing else changes.
 
@@ -22,7 +23,8 @@ machine's physical cores, so adding a process oversubscribes compute
 and the measured efficiency bounds the HARNESS, not the algorithm
 (this box has 4 cores; 2 procs x 2 devs measures ~0.6).  The number
 that matters must come from real multi-host hardware; this tool is the
-ready-to-run methodology (constant work per shard, DCN collectives).
+ready-to-run methodology (constant work per shard, cross-process
+collectives).
 
 Usage: python tools/bench_multihost.py [--procs 2] [--dev-per-proc 4]
        [--obs-per-shard 8192] [--iters 4]

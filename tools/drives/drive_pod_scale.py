@@ -1,4 +1,4 @@
-"""TPU verification drive: the engine at POD-SCALE capacity (1024 KF).
+"""Verification drive (on the card): the engine at POD-SCALE capacity (1024 KF).
 
 VERDICT r4 missing #2: every engine number so far was captured at the
 256-KF default; the pod-scale code paths (matrix-free CG pose graph at
@@ -16,12 +16,11 @@ circuit that closes its loop at ~900 keyframes:
     matrix-free block-Jacobi CG solver (`pose_graph.py` auto-selects CG
     at K >= 512) — the single-threaded g2o solve this design replaces
     (/root/reference/src/Optimizer.cc:74-85) could not touch this size,
-  * per-stage wall medians are reported for BASELINE.md's pod-scale
-    table.
+  * per-stage wall medians are reported.
 
 DRIVE_FRAMES scales the circuit for CPU smoke runs (default 6600; the
 smoke run exercises capacity allocation + chunked covis without the
-closure).  Run on the REAL TPU:  python tools/drives/drive_pod_scale.py
+closure).  Run on the card:  python tools/drives/drive_pod_scale.py
 (background it; first compiles go through the remote service).
 """
 import os

@@ -1,16 +1,16 @@
-"""TPU diagnostic: inertial chain throughput ablation.
+"""Diagnostic (on the card): inertial chain throughput ablation.
 
-The r5 bench measured the zero-sync INERTIAL chain at ~22 fps vs ~170
-visual — this drive localizes the gap by timing three dependent device
-chains on the SAME warmed scene (scenario matches
-bench.bench_full_inertial; duplication is deliberate — this is a
-диагностic harness, the bench stays self-contained):
+Localizes the throughput gap between the zero-sync INERTIAL chain and
+the visual one by timing three dependent device chains on the SAME
+warmed scene (scenario matches bench.bench_full_inertial; duplication is
+deliberate — this is a diagnostic harness, the bench stays
+self-contained):
 
   A. extract + track only          (visual-equivalent floor)
   B. A + frame preintegration + IMU predict (adds the 64-step scan)
   C. the production fused _vi_track_step    (adds retry cond + VI opt)
 
-Run on the REAL TPU:  python tools/drives/drive_vi_chain_ablation.py
+Run on the card:  python tools/drives/drive_vi_chain_ablation.py
 """
 import os
 import sys

@@ -14,7 +14,7 @@ recall@3 (fraction of queries whose true place ranks first / within the
 top 3 DB scores) and the mean true/best-impostor score margin.
 
 Run:  python tools/vocab_recall_curve.py [--cpu]
-(TPU by default; ~2 min.  Table is pasted into BASELINE.md.)
+(default device unless --cpu.)
 """
 import argparse
 import os
